@@ -1,7 +1,8 @@
 """Benchmark: TPC-H Q1 (SF1) through the FULL engine — SQL parse ->
-logical optimize -> physical plan -> fused device aggregation on the chip.
+logical optimize -> physical plan -> fused device aggregation on the GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "device"}.
+Exits non-zero when JAX finds no GPU.
 
 Baseline: reference `tpch_mem` Q1 = 2182.44 ms for SF1 (~6.0M rows,
 BASELINE.md) => ~2.75M rows/s. vs_baseline = our_throughput / theirs.
@@ -44,7 +45,7 @@ def make_lineitem(n: int, seed: int = 0):
 
     rng = np.random.default_rng(seed)
     # TPC-H money columns are DECIMAL(15,2): scaled int64 on device — exact
-    # arithmetic, and int64 reductions beat software-emulated f64 on v5e
+    # arithmetic
     dec2 = dt.decimal(15, 2)
     qty = (rng.integers(1, 51, n) * 100).astype(np.int64)
     price = rng.integers(90_000, 10_500_000, n).astype(np.int64)
@@ -79,6 +80,10 @@ def make_lineitem(n: int, seed: int = 0):
 
 
 def main():
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench.py needs a GPU; JAX found {dev.platform}")
     import datafusion_tpu as df
     from datafusion_tpu.datasource.memory import MemTable
 
@@ -103,6 +108,8 @@ def main():
         "value": round(rows_per_sec, 1),
         "unit": "rows/s",
         "vs_baseline": round(rows_per_sec / BASELINE_ROWS_PER_SEC, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

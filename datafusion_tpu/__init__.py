@@ -1,8 +1,9 @@
-"""datafusion_tpu — a TPU-native vectorized SQL / DataFrame query engine.
+"""datafusion_tpu — a vectorized SQL / DataFrame query engine whose hot
+operators run as fused JAX/XLA programs on an accelerator.
 
-Built from scratch in JAX/XLA (Pallas for hot kernels) with the capabilities
-of Apache DataFusion (reference surveyed in SURVEY.md). The compute path is
-columnar device kernels over dense padded arrays + validity masks; strings
+Built from scratch in JAX with the capabilities of Apache DataFusion
+(reference surveyed in SURVEY.md). The compute path is jitted XLA
+programs over dense padded arrays + validity masks; strings
 are dictionary-encoded; distribution is jax.sharding over a device mesh with
 all-to-all shuffles instead of the reference's RepartitionExec channels.
 

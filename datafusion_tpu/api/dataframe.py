@@ -54,6 +54,9 @@ class DataFrame:
     def collect(self) -> List[Batch]:
         from ..physical.plan.base import collect
         phys = self.create_physical_plan()
+        # the plan this run executes; its operators accumulate the run's
+        # metrics (EXPLAIN ANALYZE reads the same)
+        self.executed_plan = phys
         return collect(phys, self.session.task_context())
 
     def collect_batch(self) -> Batch:

@@ -110,13 +110,7 @@ def main(argv=None) -> int:
     p.add_argument("--rows", type=int, default=1_000_000)
     p.add_argument("--iterations", type=int, default=3)
     p.add_argument("--no-device", action="store_true")
-    p.add_argument("--cpu", action="store_true",
-                   help="force the CPU jax backend (the TPU plugin ignores "
-                        "JAX_PLATFORMS)")
     args = p.parse_args(argv)
-    if args.cpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     if args.suite == "tpch":
         results = run_tpch(args.sf, args.iterations, not args.no_device)
     elif args.suite == "clickbench":

@@ -11,7 +11,7 @@ def generate_hits(n: int = 100_000, seed: int = 0) -> Dict[str, np.ndarray]:
     the public 100M-row hits.parquet carries ~18M distinct URLs, ~4M
     titles, ~120k search phrases and ~17.6M users — dictionary sizes are
     the workload's defining stressor, so they scale with n here instead
-    of staying fixed (VERDICT r4 item 8). Zipf skew preserved."""
+    of staying fixed. Zipf skew preserved."""
     rng = np.random.default_rng(seed)
     n_users = max(n // 6, 10)
     # zipf-ish skew for user activity and search phrases (the workload's

@@ -1,18 +1,17 @@
-"""Logical data types and their TPU device representations.
+"""Logical data types and their device representations.
 
 Reference parity: DataFusion's arrow DataType surface as used by DFSchema
 (`datafusion/common/src/dfschema.rs:108`) and ScalarValue
 (`datafusion/common/src/scalar/mod.rs:192`).
 
-TPU-first design: every logical type maps to a dense device representation
-natively supported (or efficiently emulated) by XLA:TPU:
+Device-first design: every logical type maps to a dense device
+representation XLA supports:
 
   BOOL                 -> bool_
-  INT8/16/32           -> int32   (TPU VPU lanes are 32-bit; narrow ints widen)
-  INT64                -> int64   (XLA emulates via 2x s32; exact)
+  INT8/16/32           -> int32   (narrow ints widen)
+  INT64                -> int64
   FLOAT32              -> float32
-  FLOAT64              -> float64 (XLA double-double emulation on TPU; ~49-bit
-                                   mantissa — exact money math uses DECIMAL)
+  FLOAT64              -> float64 (exact money math uses DECIMAL)
   DECIMAL(p<=18, s)    -> int64 scaled integer (exact arithmetic)
   STRING               -> int32 dictionary codes; dictionary values stay on
                           host (order-preserving codes: dict sorted at build)

@@ -1,4 +1,4 @@
-"""Device compute path: jit-compiled XLA/TPU kernels for the hot operators.
+"""Device compute path: jit-compiled XLA programs for the hot operators.
 
 Where the host path (`physical/`) runs vectorized numpy per batch, this
 package provides traceable JAX equivalents with static shapes — the
@@ -15,15 +15,22 @@ import jax as _jax
 # datafusion_tpu is imported before jax).
 _jax.config.update("jax_enable_x64", True)
 
-# persistent compilation cache: TPU compiles (especially through remote
-# compile tunnels) are expensive; query shapes repeat across runs.
-_cache_dir = _os.environ.get("DATAFUSION_TPU_COMPILE_CACHE",
-                             _os.path.expanduser("~/.cache/datafusion_tpu_xla"))
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # noqa: BLE001 — cache is best-effort
-    pass
+# persistent compilation cache: query shapes repeat across runs and
+# processes. JAX_COMPILATION_CACHE_DIR, when set, is JAX's own setting and
+# wins; otherwise the cache lives at one fixed path inside the checkout
+# (a path that moves never hits).
+_REPO_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__)))), ".jax_cache")
+
+
+def compile_cache_dir(environ=_os.environ) -> str:
+    """The persistent compilation cache directory in effect."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or _REPO_CACHE_DIR
+
+
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _REPO_CACHE_DIR)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .groupby import device_group_aggregate, device_filter_reduce  # noqa: F401,E402

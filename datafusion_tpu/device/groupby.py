@@ -6,8 +6,8 @@ interning is *sort-based*: argsort the packed key word, mark run
 boundaries, prefix-sum to dense ids. Reductions are then **sorted-aware**:
 
 * sum/count: cumulative sum + gather at segment ends (two O(n) vector
-  passes — no scatter; XLA:TPU scatter with many segments serializes and
-  is orders of magnitude slower),
+  passes — no scatter, which the compiler this was first written for
+  serialized; whether scatter pays on the H100 is ROADMAP A6),
 * min/max: segmented associative scan (`lax.associative_scan` with a
   boundary-reset combiner) + gather at segment ends.
 
@@ -54,9 +54,8 @@ def _seg_minmax_two_key_sort(keys_masked: jnp.ndarray, vals: jnp.ndarray,
                              ends: jnp.ndarray, op: str) -> jnp.ndarray:
     """Segmented min/max via a two-key sort: `lax.sort((key, value))`
     orders values ascending within each key run, so the segment min sits at
-    the segment start and the max at the segment end. One native sort —
-    TPU sorts are fast, while associative-scan/scatter formulations
-    compile or run pathologically."""
+    the segment start and the max at the segment end. One native sort in
+    place of associative-scan/scatter formulations (ROADMAP A6)."""
     _, sv = jax.lax.sort((keys_masked, vals), num_keys=2)
     if op == "max":
         return sv[jnp.clip(ends, 0, None)]
@@ -117,9 +116,8 @@ _SORTED_KINDS = frozenset({"sum", "count", "maxmono"})
 def _sorted_group_aggregate(keys, row_valid, values, max_groups):
     """PRE-SORTED keys fast path: the caller guarantees `keys` is
     non-decreasing over the VALID rows (invalid rows may carry anything,
-    anywhere). Skips the argsort AND the value reorder gathers — the
-    single biggest cost of the table path on emulated-int64 hardware
-    (BENCH_NOTES round 4: 787ms -> ~300ms at 8M rows). Reference analog:
+    anywhere). Skips the argsort AND the value reorder gathers, the
+    biggest cost of the table path. Reference analog:
     GroupOrdering::Full in aggregates/order/full.rs — the reference also
     exploits input sorted on the group keys.
 
@@ -236,12 +234,10 @@ def device_group_aggregate(
 
 def reorder_rows_packed(order, arrays):
     """Reorder many row-aligned arrays by one permutation with ONE 2D
-    int32 row-gather instead of per-array gathers. Measured on v5e: an
-    int64 gather at 8M indices costs ~180ms while the same data as two
-    int32 lanes of a row-gather costs ~38ms, and extra lanes are nearly
-    free (lane-vectorized). int64 splits to hi/lo lanes, bool/int32 ride
-    one lane, float32 bitcasts; float64 (software-emulated on v5e) falls
-    back to a direct gather."""
+    int32 row-gather instead of per-array gathers (whether the H100
+    needs the int32 lanes is ROADMAP C2). int64 splits to hi/lo lanes,
+    bool/int32 ride one lane, float32 bitcasts; float64 falls back to a
+    direct gather."""
     lanes = []
     specs = []   # (kind, nlanes) per array
     for a in arrays:
@@ -293,11 +289,11 @@ def rowspace_group_state(keys, row_valid, values):
     """Program-A half of the two-program ROW-SPACE grouped aggregation.
 
     The fixed-size [max_groups] group table costs a searchsorted-sort
-    segment-ends pass (~166ms at (8M,4M) on v5e) plus per-slot gathers at
-    table size; this layout instead keeps everything as O(n) scans over
-    the row space and defers the (tiny) group-table materialization to
-    `rowspace_group_emit`, sized by the EXACT live group count — two
-    compiled programs, one scalar fetch between them, no overflow retry.
+    segment-ends pass plus per-slot gathers at table size; this layout
+    instead keeps everything as O(n) scans over the row space and defers
+    the (tiny) group-table materialization to `rowspace_group_emit`,
+    sized by the EXACT live group count — two compiled programs, one
+    scalar fetch between them, no overflow retry.
     Reference analog: GroupedHashAggregateStream emitting only occupied
     buckets (aggregates/row_hash.rs:524).
 
@@ -305,8 +301,8 @@ def rowspace_group_state(keys, row_valid, values):
     anything — their value-lane contributions are pre-masked to the
     aggregation identity by the caller). `values` maps slot name ->
     (kind, row_array) with kind in {"sum","count","maxmono","distinct"}.
-    `keys` may be int32 (narrow packed key spaces) — int32 scans/sorts
-    are ~2x cheaper than emulated int64 on v5e.
+    `keys` may be int32 (narrow packed key spaces): int32 scans/sorts
+    move half the bytes of int64.
 
     Returns (lanes, n_groups): `lanes` is a flat dict of [n] row-space
     arrays (device-resident between the two programs)."""
@@ -401,8 +397,8 @@ def device_group_aggregate_big(
     {name: aggregate_at_end_slot [n]}). Rows where ``is_end`` is False are
     padding. Designed for the top-k emit (aggregate ORDER BY ... LIMIT k
     fused on device — see DeviceGroupAggregateExec), where the group table
-    never materializes to the host. Costs one argsort + O(#slots) gathers
-    (sorts dominate on TPU; gathers are cheap — BENCH_NOTES.md)."""
+    never materializes to the host. Costs one argsort + O(#slots)
+    gathers."""
     n = keys.shape[0]
     sentinel = jnp.int64(0x7FFFFFFFFFFFFFFF)
     k = jnp.where(row_valid, keys, sentinel)

@@ -269,10 +269,9 @@ def _lower_binary(e: PE.BinaryPhysExpr, aux):
             return d, valids[idx]
         return t
 
-    # decimal column <cmp> float literal: the device's f64 is EMULATED
-    # (f32-pair on v5e; the X64 rewriter), so descaling to f64 on device
-    # drifts by ~1 ulp and boundary rows vanish (l_discount >= 0.05
-    # dropped 0.05). The literal is static: compute the exact scaled-int
+    # decimal column <cmp> float literal: descaling to f64 on device can
+    # drift by ~1 ulp and boundary rows vanish (l_discount >= 0.05 would
+    # drop 0.05). The literal is static: compute the exact scaled-int
     # threshold on the host (true f64, matching the reference's
     # decimal->double coercion), and compare integers on device.
     if op in (Op.EQ, Op.NEQ, Op.LT, Op.LTEQ, Op.GT, Op.GTEQ):

@@ -8,12 +8,12 @@ numpy passes.
 
 Reference parity: `windows/bounded_window_agg_exec.rs:239` evaluation +
 the built-in window exprs (`physical-expr/src/window/{row_number,rank,
-lead_lag,ntile,cume_dist}.rs`) and frame aggregates. TPU re-design:
+lead_lag,ntile,cume_dist}.rs`) and frame aggregates. Device re-design:
 everything is a SEGMENT SCAN over the sorted space — `lax.sort` once,
-then cumsum / cummax / flip tricks and gathers (no scatter, no
-per-partition host loops; XLA:TPU scatter with many segments
-serializes). The inverse permutation is a second `lax.sort` keyed on the
-carried row index, keeping the whole program scatter-free.
+then cumsum / cummax / flip tricks and gathers (no segment scatter, no
+per-partition host loops; scatter with many segments was serialized by
+the compiler this was first written for — ROADMAP A6). Results return
+to input row order through one permutation scatter.
 
 Supported here (the hot family; everything else stays on the host twin
 in physical/plan/window.py): row_number, rank, dense_rank, percent_rank,
@@ -30,7 +30,8 @@ import numpy as np
 _WIN_CACHE: dict = {}
 _WIN_CACHE_MAX = 256
 
-# below this row count the dispatch RTT dominates any device win
+# below this row count the window stays on the host (threshold to be
+# measured on the H100: ROADMAP A4)
 DEFAULT_MIN_ROWS = 1 << 17
 
 
@@ -65,13 +66,9 @@ def device_window_eval(
     """Evaluate one window function over all rows, fused on device.
     Returns a dict of np arrays in ORIGINAL row order — keys depend on
     the spec kind: ranks return {"data"}; lag/lead {"data", "valid"};
-    frame aggregates {"sum", "cnt"} (host finalizes sum/avg/validity).
-    Returns None when jax is unavailable."""
-    try:
-        import jax
-        import jax.numpy as jnp
-    except Exception:  # noqa: BLE001
-        return None
+    frame aggregates {"sum", "cnt"} (host finalizes sum/avg/validity)."""
+    import jax
+    import jax.numpy as jnp
 
     cap = _bucket(n)
     words = list(part_words) + list(order_words)
@@ -252,11 +249,11 @@ def _build_step(spec, cap, n_part, n_order, has_arg, has_default):
         else:
             raise ValueError(kind)
 
-        # inverse permutation via a second sort keyed on the original row
-        # index (scatter-free)
-        names = tuple(outs.keys())
-        inv_ops = (perm,) + tuple(outs[k] for k in names)
-        inv = lax.sort(inv_ops, num_keys=1, is_stable=False)
-        return {k: inv[1 + i] for i, k in enumerate(names)}
+        # back to input row order: sorted row i came from row perm[i]. A
+        # permutation scatter (a second lax.sort keyed on perm is
+        # rewritten into an ill-typed scatter by XLA:GPU's
+        # permutation_sort_simplifier for uint64 outputs)
+        return {k: jnp.zeros_like(v).at[perm].set(v, unique_indices=True)
+                for k, v in outs.items()}
 
     return step

@@ -9,7 +9,7 @@ tree, shrinking per-column ranges), surfaced the way
 selectivity estimate for a predicate.
 
 Operates on logical `Expr` trees at planning time (planning is host-side
-Python; the TPU executes the compiled plan, so this never runs on
+Python; the device executes the compiled plan, so this never runs on
 device). Bounds are closed `[lower, upper]` floats with ±inf for
 unbounded — the reference's open/closed bound distinction only sharpens
 strict comparisons and does not change pruning/selectivity decisions.

@@ -1,7 +1,7 @@
 """PushDownFilter — move predicates toward the scans.
 
 Reference parity: `datafusion/optimizer/src/push_down_filter.rs` (the most
-important single rule in the reference at 2.9k LoC; this is the TPU
+important single rule in the reference at 2.9k LoC; this is the
 engine's equivalent covering Projection/Filter/Join/SubqueryAlias/Union/
 Aggregate/Sort/Limit hops).
 """

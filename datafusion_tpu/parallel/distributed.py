@@ -1,6 +1,6 @@
 """Distributed two-phase aggregation over a device mesh.
 
-This is the TPU-native RepartitionExec + AggregateMode::FinalPartitioned
+This is the device-native RepartitionExec + AggregateMode::FinalPartitioned
 (SURVEY.md §2.6.3-4): instead of channel-based row shuffles, the exchange
 rides collectives inside one compiled SPMD program:
 
@@ -12,14 +12,14 @@ rides collectives inside one compiled SPMD program:
 The all_gather ships `n_dev × max_groups` state rows — the broadcast
 variant of the shuffle. It is the right choice when the partial state is
 small relative to input rows (the common case: aggregation reduces), and
-every byte moves over ICI inside one XLA program. A slotted
+every byte moves over the device interconnect inside one XLA program. A slotted
 `lax.all_to_all` variant that ships only owned rows is the planned
 optimization for high-cardinality groups.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -29,23 +29,15 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..device.groupby import device_group_aggregate
 
 
-def make_mesh(n_devices: int, axis: str = "dp",
-              backend: Optional[str] = None) -> Mesh:
-    """Mesh over the first n devices. Falls back to the CPU backend when
-    the default backend has too few chips (so multi-chip plans can be
-    dry-run on one-chip hosts with xla_force_host_platform_device_count)."""
-    devs = jax.devices() if backend is None else jax.local_devices(backend=backend)
-    if len(devs) < n_devices and backend is None:
-        try:
-            cpu = jax.local_devices(backend="cpu")
-            if len(cpu) >= n_devices:
-                devs = cpu
-        except RuntimeError:
-            pass
+def make_mesh(n_devices: int, axis: str = "dp") -> Mesh:
+    """One-dimensional mesh over the first n devices of the default
+    backend. Raises when the backend has fewer devices: a plan never
+    moves to another backend. (On the CPU backend,
+    XLA_FLAGS=--xla_force_host_platform_device_count=N gives N devices.)"""
+    devs = jax.devices()
     if len(devs) < n_devices:
         raise RuntimeError(
-            f"need {n_devices} devices, have {len(devs)}; set "
-            f"XLA_FLAGS=--xla_force_host_platform_device_count={n_devices}")
+            f"need {n_devices} {devs[0].platform} devices, have {len(devs)}")
     return Mesh(np.array(devs[:n_devices]), (axis,))
 
 
@@ -88,7 +80,7 @@ def distributed_group_aggregate(
         gk, gv, partial_aggs, _ng = device_group_aggregate(
             keys_l, valid_l, vals, max_groups)
 
-        # ---- exchange: all_gather partial state over ICI ---------------
+        # ---- exchange: all_gather partial state over the mesh ----------
         gk_all = jax.lax.all_gather(gk, axis)          # [n_shards, G]
         gv_all = jax.lax.all_gather(gv, axis)
         agg_all = {n: jax.lax.all_gather(a, axis) for n, a in partial_aggs.items()}
@@ -218,7 +210,7 @@ def distributed_join_group_aggregate(
 ):
     """Production distributed broadcast-join + two-phase aggregation.
 
-    The TPU-native CollectLeft hash join feeding a partitioned aggregate
+    The device-native CollectLeft hash join feeding a partitioned aggregate
     (SURVEY.md §2.6.4-5): the sorted build side is replicated over the
     mesh (in_specs P() — an implicit broadcast, the all_gather analog of
     the reference's shared OnceAsync build, hash_join.rs:313); probe rows

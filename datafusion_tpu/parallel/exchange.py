@@ -1,12 +1,12 @@
 """All-to-all shuffle exchange + distributed partitioned hash join.
 
-The TPU-native RepartitionExec(Hash) (reference:
+The device-native RepartitionExec(Hash) (reference:
 physical-plan/src/repartition/mod.rs:391) and PartitionMode::Partitioned
 hash join (reference: joins/hash_join.rs:421-503, planner rule
 enforce_distribution.rs:1037-1142), re-designed for the XLA collectives
 model: instead of channel-per-partition row streams, rows/slots move in
 `lax.all_to_all` collectives inside ONE compiled SPMD program over the
-mesh's ICI.
+mesh's device interconnect.
 
 The exchange is OVERFLOW-CHAINED (the static-shape analog of the
 reference's credit-based `distributor_channels.rs:18-40`, which never
@@ -101,8 +101,8 @@ def _all_to_all_rows(axis: str, n_shards: int, owner: jnp.ndarray,
     build side) and the caller sized `cap` exactly from host data.
 
     Rows bucket into n_shards blocks of `cap` slots by a single stable
-    argsort on the destination (no scatter — sort + gathers only, per the
-    v5e primitive costs), then one lax.all_to_all ships block d to shard d.
+    argsort on the destination (no scatter — sort + gathers only), then
+    one lax.all_to_all ships block d to shard d.
     """
     n = owner.shape[0]
     own = jnp.where(valid, owner.astype(jnp.int32), jnp.int32(n_shards))
@@ -160,7 +160,11 @@ def _all_to_all_chained(axis: str, n_shards: int, owner: jnp.ndarray,
         Returns (recv_arrays, recv_valid, sent_mask, any_left)."""
         own = jnp.where(pending, owner.astype(jnp.int32), jnp.int32(n_shards))
         order = jnp.argsort(own, stable=True)
-        inv = jnp.argsort(order)          # row -> its sorted position
+        # row -> its sorted position (a scatter: argsort of a permutation
+        # is rewritten by XLA:GPU's permutation_sort_simplifier into an
+        # ill-typed scatter for int64 indices)
+        inv = jnp.zeros_like(order).at[order].set(
+            jnp.arange(n, dtype=order.dtype), unique_indices=True)
         own_s = own[order]
         dests = jnp.arange(n_shards, dtype=own_s.dtype)
         starts = jnp.searchsorted(own_s, dests, side="left", method="sort")

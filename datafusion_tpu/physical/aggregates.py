@@ -5,7 +5,7 @@ Reference parity: the `GroupsAccumulator` trait
 merge_batch / state / evaluate over dense group indices) and the built-in
 aggregates (`datafusion/functions-aggregate/src/`). State is dense
 per-group tensors (one slot per group id) updated with vectorized
-scatter-reductions — exactly the layout the TPU segment-reduce kernels use.
+scatter-reductions — the layout the device segment-reduce programs use.
 
 Two-phase protocol (AggregateMode Partial -> Final, `aggregates/mod.rs:64`):
   Partial:  update(values, group_ids) ... state() -> per-group state columns
@@ -182,8 +182,7 @@ class AvgAcc(SumAcc):
     def state(self, n_groups):
         # partial state ships the RAW sums — SumAcc.state() goes through
         # evaluate(), which AvgAcc overrides with the division; reusing
-        # it here made two-phase avg divide twice (caught by the pod's
-        # cross-process Partial->Final path)
+        # it here made two-phase avg divide twice (Partial->Final)
         sums = _grow(self.sums, n_groups, 0)
         counts = _grow(self.counts, n_groups, 0)
         v = counts > 0

@@ -19,7 +19,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..common.column import Column
+from ..common.column import Column, factorize_objects, object_nulls
 
 _U64 = np.uint64
 _NULL_HASH = _U64(0x9E3779B97F4A7C15)
@@ -108,10 +108,36 @@ def create_hashes(cols: List[Column], n: Optional[int] = None) -> np.ndarray:
 
 
 def _dense_codes(arr: np.ndarray) -> Tuple[np.ndarray, int]:
-    """Hash-based dense codes (first-appearance order), O(n)."""
-    import pandas as pd
-    codes, uniques = pd.factorize(arr, use_na_sentinel=False)
-    return codes.astype(np.int64), len(uniques)
+    """(codes, count): dense codes numbering the distinct values in order
+    of first appearance. NaN (and None in object arrays) is one value.
+    Integers of a bounded range take a direct-address pass, O(n + span);
+    other arrays sort."""
+    n = len(arr)
+    if arr.dtype == object:
+        null = object_nulls(arr)
+        if null.any():
+            arr = arr.copy()
+            arr[null] = None
+        codes, uniq = factorize_objects(arr)
+        return codes, len(uniq)
+    if arr.dtype.kind == "b":
+        arr = arr.view(np.uint8)
+    if arr.dtype.kind in "iu" and n:
+        lo = arr.min()
+        span = int(arr.max()) - int(lo) + 1
+        if span <= 2 * n + 1024:
+            slot = (arr - lo).astype(np.intp)
+            # reverse-order assignment leaves each slot's earliest row
+            first = np.full(span, n, np.int64)
+            first[slot[::-1]] = np.arange(n - 1, -1, -1)
+            used = np.flatnonzero(first < n)
+            rank = np.empty(span, np.int64)
+            rank[used[np.argsort(first[used])]] = np.arange(len(used))
+            return rank[slot], len(used)
+    uniq, first, inv = np.unique(arr, return_index=True, return_inverse=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(first)] = np.arange(len(uniq))
+    return rank[inv.reshape(-1)], len(uniq)
 
 
 def factorize_column(col: Column) -> np.ndarray:
@@ -121,11 +147,9 @@ def factorize_column(col: Column) -> np.ndarray:
     if col.dtype.is_nested:
         # list/struct keys: hash the python representation (reference
         # groups on arrow list values; GROUP BY [..] is rare + small)
-        import pandas as pd
         keyed = np.fromiter((repr(x) for x in col.to_pylist(len(data))),
                             dtype=object, count=len(data))
-        inv, _ = pd.factorize(keyed, use_na_sentinel=False)
-        codes = inv.astype(np.int64) + 1
+        codes = _dense_codes(keyed)[0] + 1
         if v is not None:
             codes = np.where(v, codes, 0)
         return codes

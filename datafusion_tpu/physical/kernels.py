@@ -12,7 +12,7 @@ Conventions:
 * NULL semantics: result validity = AND of input validities, except where
   SQL says otherwise (Kleene AND/OR, IS NULL, COALESCE, ...);
 * data under invalid slots is arbitrary but must be in-range for the dtype
-  (kernels never trap on masked lanes — same rule as masked TPU lanes).
+  (kernels never trap on masked lanes — same rule as the device programs).
 """
 from __future__ import annotations
 

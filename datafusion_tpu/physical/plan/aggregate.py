@@ -6,7 +6,7 @@ GroupedHashAggregateStream hot loop (`aggregates/row_hash.rs:207,524`):
 GroupValues::intern maps keys to dense group ids, accumulators scatter-add
 with those ids. Here interning is vectorized factorization
 (`physical/hashing.py`); accumulator state is dense per-group tensors —
-the same layout the TPU segment-reduce path uses.
+the same layout the device segment-reduce path uses.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 Reference parity: the reference scales aggregation by hash-repartitioning
 partial states between tasks (`RepartitionExec` + AggregateMode
-Partial/FinalPartitioned, SURVEY.md §2.6.3-4).  On TPU the exchange is an
-ICI collective instead of a channel: rows are sharded over a
+Partial/FinalPartitioned, SURVEY.md §2.6.3-4).  Here the exchange is a
+mesh collective instead of a channel: rows are sharded over a
 `jax.sharding.Mesh`, every shard computes a fixed-size partial group
 table, the tables `all_gather` over the mesh, and each shard reduces the
 groups it owns (hash % n_shards) — see `parallel/distributed.py`.
@@ -75,7 +75,7 @@ class DistributedAggregateExec(DeviceGroupAggregateExec):
         if not batches:
             batch = None
         elif len(batches) == 1:
-            batch = batches[0]
+            batch = batches[0].compact()   # device-born: capacity-padded
         else:
             batch = concat_batches(batches[0].schema, batches)
 
@@ -142,12 +142,12 @@ class DistributedAggregateExec(DeviceGroupAggregateExec):
                 if cat == "cnt":
                     values[slot] = ("sum", av.astype(np.int64))
                 else:
-                    x = data.astype(np.int64) if c.dtype.is_decimal else \
-                        data.astype(np.float64)
+                    x = data.astype(np.int64) if arg.out_type.is_decimal \
+                        else data.astype(np.float64)
                     values[slot] = ("sum", np.where(av, x, 0))
             else:
-                x = data.astype(np.float64) if not c.dtype.is_decimal else \
-                    data.astype(np.int64)
+                x = data.astype(np.float64) if not arg.out_type.is_decimal \
+                    else data.astype(np.int64)
                 if x.dtype.kind == "f":
                     sentinel = np.inf if cat == "min" else -np.inf
                 else:
@@ -291,7 +291,7 @@ class DistributedJoinAggregateExec(DistributedAggregateExec):
     Planner-visible distributed join (SURVEY.md §2.6.5 CollectLeft):
     the compacted build side is replicated over the mesh, probe rows
     shard, matches expand into a fixed lane space, and group tables
-    exchange over ICI exactly like `DistributedAggregateExec`.
+    exchange over the mesh exactly like `DistributedAggregateExec`.
     Constructor mirrors `DeviceJoinAggregateExec`: group/agg/pair
     expressions live in the pair column space (build cols 0..nb-1,
     probe cols nb..).
@@ -371,7 +371,7 @@ class DistributedJoinAggregateExec(DistributedAggregateExec):
         if not batches:
             return None
         if len(batches) == 1:
-            return batches[0]
+            return batches[0].compact()    # device-born: capacity-padded
         return concat_batches(batches[0].schema, batches)
 
     # ------------------------------------------------------------------

@@ -8,7 +8,7 @@ with row-group pruning via predicate min/max statistics
 
 The host reads + decodes (pyarrow), prunes row groups whose [min, max]
 cannot satisfy the predicate, converts to the dense device layout, and
-yields one large Batch per file (big tiles amortize TPU kernel launches).
+yields one large Batch per file (big tiles amortize device program launches).
 """
 from __future__ import annotations
 

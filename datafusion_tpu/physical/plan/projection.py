@@ -330,7 +330,7 @@ class CoalescePartitionsExec(ExecutionPlan):
 
 class CoalesceBatchesExec(ExecutionPlan):
     """Concat small batches up to target size (reference:
-    coalesce_batches.rs:44). On TPU this re-tiles ragged post-filter
+    coalesce_batches.rs:44). On the device this re-tiles ragged post-filter
     occupancy into full tiles."""
 
     def __init__(self, input: ExecutionPlan, target: int):

@@ -3,7 +3,7 @@
 Reference parity: `sorts/sort.rs:668` (ExternalSorter), `topk/mod.rs:75`
 (ORDER BY + LIMIT k), `sorts/sort_preserving_merge.rs:67`.
 
-TPU-first detail: every sort key column is first encoded into a *monotonic
+Device-first detail: every sort key column is first encoded into a *monotonic
 uint64 order key* (sign-flip for ints, IEEE total-order trick for floats —
 NaN sorts greatest like the reference, dictionary codes for strings,
 bit-inversion for DESC, a leading null-rank word for NULLS FIRST/LAST).
@@ -111,16 +111,19 @@ def order_keys(col, asc: bool, nulls_first: bool) -> List[np.ndarray]:
 
 
 def sort_indices(batch: Batch, sort_exprs: List[PhysSortExpr],
-                 limit: Optional[int] = None, metrics=None) -> np.ndarray:
-    """Row permutation realizing the sort order (stable). Large inputs
-    sort on the device (`device_sort.lexsort`: one stable multi-word
-    lax.sort), small ones on the host — bit-identical results."""
+                 limit: Optional[int] = None, metrics=None,
+                 config=None) -> np.ndarray:
+    """Row permutation realizing the sort order (stable). Inputs of at
+    least `datafusion.tpu.device_sort_min_rows` rows sort on the device
+    (`device_sort.lexsort`: one stable multi-word lax.sort), smaller ones
+    on the host — bit-identical results."""
     keys = []
     for se in sort_exprs:
         col = se.expr.evaluate(batch)
         keys.extend(order_keys(col, se.asc, se.nulls_first))
     from .device_sort import lexsort
-    return lexsort(keys, batch.num_rows, limit=limit, metrics=metrics)
+    return lexsort(keys, batch.num_rows, limit=limit, metrics=metrics,
+                   config=config)
 
 
 class SortExec(ExecutionPlan):
@@ -203,14 +206,16 @@ class SortExec(ExecutionPlan):
                 pruned = []
                 for b in batches:
                     if b.num_rows > self.fetch:
-                        idx = sort_indices(b, self.sort_exprs, self.fetch, metrics=m)
+                        idx = sort_indices(b, self.sort_exprs, self.fetch,
+                                           metrics=m, config=ctx.config)
                         b = b.take_host(idx)
                     pruned.append(b)
                 batches = pruned
             merged = concat_batches(self.schema(), batches)
             if merged.num_rows == 0:
                 return
-            idx = sort_indices(merged, self.sort_exprs, self.fetch, metrics=m)
+            idx = sort_indices(merged, self.sort_exprs, self.fetch,
+                               metrics=m, config=ctx.config)
             out = merged.take_host(idx)
         m.record_output(out.num_rows)
         yield out
@@ -328,7 +333,7 @@ class PartialSortExec(ExecutionPlan):
                 concat_batches(self.schema(), run_batches)
             idx = sort_indices(merged, suffix,
                                None if self.fetch is None
-                               else self.fetch - emitted)
+                               else self.fetch - emitted, config=ctx.config)
             out = merged.take_host(idx)
             emitted += out.num_rows
             return out
@@ -435,7 +440,8 @@ class SortPreservingMergeExec(ExecutionPlan):
                 merged = concat_batches(self.schema(), per_part)
                 if merged.num_rows == 0:
                     return
-                idx = sort_indices(merged, self.sort_exprs, self.fetch, metrics=m)
+                idx = sort_indices(merged, self.sort_exprs, self.fetch,
+                                   metrics=m, config=ctx.config)
                 out = merged.take_host(idx)
         m.record_output(out.num_rows)
         yield out

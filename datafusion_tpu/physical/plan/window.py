@@ -9,7 +9,7 @@ nth_value.rs, row_number.rs, cume_dist.rs, ntile.rs) and the frame spec
 Host path: the input is buffered, rows are ordered by (partition keys,
 order keys) once, every function is computed vectorized over that ordering
 (ranks via run-length/dedup scans, frame aggregates via prefix sums —
-the same scan-based formulation the TPU path uses with lax cumsums), and
+the same scan-based formulation the device path uses with lax cumsums), and
 results are scattered back to original row order.
 """
 from __future__ import annotations
@@ -97,7 +97,8 @@ class WindowExec(ExecutionPlan):
             key = None if self.linear else _output_sort_key(
                 self.window_exprs, self.input.output_ordering())
             if key:
-                out = out.take_host(_order_for_key(key, batch, metrics=m))
+                out = out.take_host(_order_for_key(key, batch, metrics=m,
+                                                   config=ctx.config))
         m.record_output(out.num_rows)
         yield out
 
@@ -188,7 +189,8 @@ class BoundedWindowExec(WindowExec):
                                    self.input.output_ordering())
             if key:   # rows leave in the primary group's ordering (see
                 # WindowExec.execute); partition keys are constant per run
-                out = out.take_host(_order_for_key(key, merged, metrics=m))
+                out = out.take_host(_order_for_key(key, merged, metrics=m,
+                                                   config=ctx.config))
             return out
 
         for b in execute_stream(self.input, ctx):
@@ -428,7 +430,7 @@ def _plan_window_evaluation(window_exprs: List[PhysWindowExpr],
     return [out[i] for i in range(len(window_exprs))]
 
 
-def _order_for_key(key, batch: Batch, metrics=None):
+def _order_for_key(key, batch: Batch, metrics=None, config=None):
     """Stable lexsort order for a [(expr, asc, nulls_first, is_part)] key.
     Large inputs sort on the device (device_sort.lexsort)."""
     from .device_sort import lexsort
@@ -437,10 +439,11 @@ def _order_for_key(key, batch: Batch, metrics=None):
         rank, kk = order_keys(e.evaluate(batch), asc, nf)
         ks.append(rank)
         ks.append(kk)
-    return lexsort(ks, batch.num_rows, metrics=metrics)
+    return lexsort(ks, batch.num_rows, metrics=metrics, config=config)
 
 
-def _window_order(w: PhysWindowExpr, batch: Batch, metrics=None):
+def _window_order(w: PhysWindowExpr, batch: Batch, metrics=None,
+                  config=None):
     """(order, pids): partition-major stable sort order for one window.
     The sort itself runs on the device for large inputs (the single
     hottest window stage — reference sorts per-core in
@@ -458,7 +461,7 @@ def _window_order(w: PhysWindowExpr, batch: Batch, metrics=None):
                                se.nulls_first)
         keys.append(rank)
         keys.append(key)
-    return lexsort(keys, n, metrics=metrics), pids
+    return lexsort(keys, n, metrics=metrics, config=config), pids
 
 
 def _try_device_window(w: PhysWindowExpr, batch: Batch, metrics=None,
@@ -466,11 +469,10 @@ def _try_device_window(w: PhysWindowExpr, batch: Batch, metrics=None,
     """Fused device evaluation for the hot window family (device/window.py:
     ONE program = lexsort + segmentation + scans + inverse permutation).
     Returns None when the function/frame falls outside the device family
-    or the input is too small to beat the dispatch RTT."""
+    or the input is below the device threshold."""
     from ...device.window import device_window_eval, min_rows
-    from .device_sort import device_available
     n = batch.num_rows
-    if n < min_rows(config) or not device_available():
+    if n < min_rows(config):
         return None
     name = w.name
     frame = w.frame
@@ -567,8 +569,6 @@ def _try_device_window(w: PhysWindowExpr, batch: Batch, metrics=None,
                              arg=arg, arg_valid=arg_valid,
                              default=default, default_valid=default_valid,
                              metrics=metrics)
-    if out is None:
-        return None
     if spec[0] == "rank":
         if name in ("percent_rank", "cume_dist"):
             return Column(dt.FLOAT64, out["data"].astype(np.float64))
@@ -607,7 +607,7 @@ def _eval_window(w: PhysWindowExpr, batch: Batch, metrics=None,
     dev = _try_device_window(w, batch, metrics=metrics, config=config)
     if dev is not None:
         return dev
-    order, pids = _window_order(w, batch, metrics=metrics)
+    order, pids = _window_order(w, batch, metrics=metrics, config=config)
     sp = pids[order]                       # sorted partition ids
     # partition boundaries in sorted space
     part_start_mask = np.empty(n, bool)

@@ -1,11 +1,10 @@
-"""Physical-plan serialization (JSON tree) — the plan-shipping layer of
-the multi-host execution story.
+"""Physical-plan serialization (JSON tree).
 
 Reference parity: `datafusion/proto/src/physical_plan` / the
 PhysicalPlanNode message (`datafusion.proto:713-760` — ParquetScan,
 HashJoin, Repartition, Aggregate, Filter, Projection, Sort, Limit,
 Coalesce...). JSON instead of protobuf: the same tree structure without
-codegen, shippable over the pod's DCN sockets (parallel/pod.py).
+codegen.
 
 Table scans serialize by NAME and re-resolve against the RECEIVING
 process's catalog — the same contract as the reference's shipped

@@ -2,7 +2,7 @@
 
 Reference parity: `datafusion/execution/src/disk_manager.rs:73` +
 RefCountedTempFile (:153). Spill files are numpy .npy per column (host
-DRAM -> disk tier; on real TPU deployments the first spill tier is
+DRAM -> disk tier; on accelerator deployments the first spill tier is
 HBM -> host DRAM, which the host path gets for free by virtue of batches
 living in host memory — this disk tier is the second level).
 """

@@ -4,7 +4,7 @@ Reference parity: `datafusion/execution/src/memory_pool/` — the MemoryPool
 trait (`mod.rs:85`), MemoryConsumer/MemoryReservation (`mod.rs:121,186`) and
 the Unbounded/Greedy/FairSpill pools (`pool.rs:26,55,124`).
 
-On TPU the tracked resource is the HBM working-set budget for operator
+On the device the tracked resource is the HBM working-set budget for operator
 state (hash tables, sort buffers, build sides); when `try_grow` fails a
 spillable operator externalizes state to host DRAM (the HBM→host analog of
 the reference's disk spill).

@@ -532,12 +532,14 @@ def main(argv=None):
     ap.add_argument("--lenient-errors", action="store_true")
     ap.add_argument("--all", action="store_true",
                     help="report every failure instead of stopping")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the real device (default: host CPU)")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the accelerator (default: the platform "
+                         "JAX_PLATFORMS names)")
     args = ap.parse_args(argv)
-    if not args.tpu:
+    if args.device:
         import jax
-        jax.config.update("jax_platforms", "cpu")
+        if jax.devices()[0].platform == "cpu":
+            raise SystemExit("--device: JAX found no accelerator")
     failed = 0
     for p in args.files:
         r = SltRunner(lenient_errors=args.lenient_errors)

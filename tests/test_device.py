@@ -103,10 +103,35 @@ def test_nulls_through_device_path():
 
 
 def test_dryrun_multichip():
-    import sys
-    sys.path.insert(0, "/root/repo")
     import __graft_entry__ as g
     g.dryrun_multichip(8)
+
+
+def test_dryrun_multichip_four_devices():
+    """The mesh size `chip_smoke.py --devices 4` runs."""
+    import __graft_entry__ as g
+    g.dryrun_multichip(4)
+
+
+def test_explain_analyze_reports_achieved_bandwidth():
+    import re
+    on, _ = _two_ctxs()
+    plan = "\n".join(on.sql("EXPLAIN ANALYZE SELECT g, sum(v) s FROM t "
+                            "GROUP BY g").to_pydict()["plan"])
+    line = next(ln for ln in plan.splitlines()
+                if "DeviceGroupAggregateExec" in ln)
+    assert re.search(r"achieved=\d+\.\dGB/s", line), line
+    assert "%" not in line and "SOL" not in line
+
+
+def test_metrics_summary_bandwidth_has_no_peak_share():
+    from datafusion_tpu.runtime.metrics import MetricsSet
+    ms = MetricsSet()
+    ms.counter("bytes_touched", 0).add(3_000_000_000)
+    ms.timer("device_compute", 0).nanos = 1_500_000_000
+    summary = ms.summary()
+    assert "achieved=2.0GB/s" in summary
+    assert "%" not in summary
 
 
 def test_entry_compiles():

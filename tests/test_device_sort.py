@@ -26,8 +26,6 @@ def test_device_lexsort_matches_host(n, limit):
     r2 = np.zeros(n, np.uint8)
     keys = [r1, k1, r2, k2]
     got = device_sort.device_lexsort(keys, n, limit=limit)
-    if got is None:
-        pytest.skip("no device available")
     want = _host(keys, n, limit)
     np.testing.assert_array_equal(got, want)
 
@@ -41,12 +39,10 @@ def test_device_lexsort_full_u64_range():
     k[1] = np.uint64(0)
     keys = [np.zeros(n, np.uint8), k]
     got = device_sort.device_lexsort(keys, n)
-    if got is None:
-        pytest.skip("no device available")
     np.testing.assert_array_equal(got, _host(keys, n))
 
 
-def test_sort_exec_device_threshold(monkeypatch):
+def test_sort_exec_device_threshold():
     """SortExec output is identical whether the device path triggers."""
     from datafusion_tpu.api.context import SessionContext
     n = 20_000
@@ -58,14 +54,17 @@ def test_sort_exec_device_threshold(monkeypatch):
     })
     sql = "SELECT a, b FROM t ORDER BY a DESC, b LIMIT 500"
     host = ctx.sql(sql).collect_batch()
-    monkeypatch.setattr(device_sort, "DEFAULT_MIN_ROWS", 1)
-    dev = ctx.sql(sql).collect_batch()
+    ctx.sql("SET datafusion.tpu.device_sort_min_rows = 1")
+    frame = ctx.sql(sql)
+    dev = frame.collect_batch()
+    assert "device_compute=" in frame.executed_plan.display_indent(
+        show_metrics=True)
     for hc, dc in zip(host.columns, dev.columns):
         np.testing.assert_array_equal(hc.to_pylist(host.num_rows),
                                       dc.to_pylist(dev.num_rows))
 
 
-def test_window_device_order(monkeypatch):
+def test_window_device_order():
     """Window results identical through the device ordering path."""
     from datafusion_tpu.api.context import SessionContext
     n = 10_000
@@ -79,7 +78,7 @@ def test_window_device_order(monkeypatch):
            "sum(v) OVER (PARTITION BY g ORDER BY v) s FROM t "
            "ORDER BY g, v, rn LIMIT 200")
     host = ctx.sql(sql).collect_batch()
-    monkeypatch.setattr(device_sort, "DEFAULT_MIN_ROWS", 1)
+    ctx.sql("SET datafusion.tpu.device_sort_min_rows = 1")
     dev = ctx.sql(sql).collect_batch()
     for hc, dc in zip(host.columns, dev.columns):
         np.testing.assert_array_equal(hc.to_pylist(host.num_rows),

@@ -1,6 +1,6 @@
 """SQL planner -> mesh-distributed aggregation
 (`SET datafusion.tpu.mesh_devices = N`): SPMD shard_map grouping +
-ICI-style exchange, checked against pandas on the virtual 8-device mesh."""
+collective exchange, checked against pandas on the virtual 8-device mesh."""
 import numpy as np
 import pandas as pd
 import pytest
@@ -309,3 +309,17 @@ def test_auto_mesh_not_for_small_tables():
         return any(find(c) for c in node.children())
 
     assert not find(plan)
+
+
+def test_distributed_aggregate_over_no_rows(mesh_ctx):
+    """An input that yields no batches (TPC-H Q17's shape at small
+    scale) aggregates to NULL sums and zero counts on the mesh."""
+    mesh_ctx.register_arrays("t", {"k": np.arange(100),
+                                   "v": np.arange(100) * 1.5})
+    mesh_ctx.sql("CREATE TABLE d AS SELECT k, CAST(v AS DECIMAL(15, 2)) m "
+                 "FROM t")
+    out = mesh_ctx.sql(
+        "SELECT sum(m) sm, min(m) mn, sum(v) sv, count(*) c FROM "
+        "(SELECT m, v FROM d JOIN t USING (k) WHERE v < 0 LIMIT 10) s"
+    ).to_pydict()
+    assert out == {"sm": [None], "mn": [None], "sv": [None], "c": [0]}

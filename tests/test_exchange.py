@@ -1,7 +1,7 @@
 """Owned-slot all_to_all aggregation + distributed partitioned hash join
 (parallel/exchange.py) against numpy oracles on an 8-device CPU mesh.
 
-Covers the round-1 VERDICT "done" list for the shuffle exchange:
+Covers the shuffle exchange:
   (a) global group count exceeding the per-shard table, via owned slots
   (b) a join where neither side fits broadcast
   (c) a zipf-skewed key distribution, salted

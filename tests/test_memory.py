@@ -219,7 +219,7 @@ def test_hash_agg_spill_string_keys():
 
 
 def test_device_lut_caches_under_memory_pool():
-    """VERDICT r4 item 10: the cross-query device LUT/pmat caches are
+    """The cross-query device LUT/pmat caches are
     accounted against the query MemoryPool and LRU-evict under
     pressure instead of failing the query."""
     import numpy as np

@@ -47,3 +47,29 @@ def test_roundtrip_optimized(tctx):
     js = plan_to_json(opt)
     plan2 = plan_from_json(js, tctx)
     assert opt.display() == plan2.display()
+
+
+def test_physical_plan_json_roundtrip():
+    import datafusion_tpu as df
+    from datafusion_tpu.physical.plan.base import collect_batch
+    from datafusion_tpu.proto.physical import phys_from_dict, phys_to_dict
+    rng = np.random.default_rng(0)
+    n = 50
+    ctx = df.SessionContext()
+    ctx.register_arrays("t", {
+        "g": rng.integers(0, 7, n),
+        "s": np.array([f"k{i % 3}" for i in range(n)]),
+        "v": rng.integers(0, 100, n).astype(np.int64),
+        "f": rng.random(n),
+    })
+    plan = ctx.sql(
+        "SELECT g, sum(v) s, count(*) c FROM t WHERE v > 10 GROUP BY g"
+    ).create_physical_plan()
+    names = {id(ctx.get_table("t")): "t"}
+    back = phys_from_dict(phys_to_dict(plan, names), ctx)
+    r1 = collect_batch(plan, ctx.task_context())
+    r2 = collect_batch(back, ctx.task_context())
+    assert sorted(map(tuple, zip(*[c.to_pylist(r1.num_rows)
+                                   for c in r1.columns]))) == \
+        sorted(map(tuple, zip(*[c.to_pylist(r2.num_rows)
+                                for c in r2.columns])))
